@@ -1,12 +1,12 @@
-"""malva_tpu — a TPU-native, alignment-free genotyper.
+"""malva_tpu — an alignment-free genotyper on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of AlgoLab/malva
+A from-scratch JAX/XLA re-design of the capabilities of AlgoLab/malva
 (reference: /root/reference, surveyed in SURVEY.md): given a reference genome
 (FASTA), a population VCF of known variants, and a sample of sequencing reads,
 it emits a single-sample VCF with GT:GQ calls, bit-identically to the
 reference pipeline (`malva-geno index` + `call` fed by KMC), while running the
 hot paths (k-mer hashing, Bloom-filter probes, coverage accumulation) as
-vectorized device kernels on TPU.
+vectorized device programs on a GPU.
 
 Top-level layout:
   ops/      device kernels + exact host mirrors (XXH3, canonicalization,

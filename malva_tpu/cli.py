@@ -91,7 +91,7 @@ def main(argv: list[str] | None = None) -> int:
     stderr line and exit 1 — never a traceback.  Only the dedicated
     InputError (raised at validated I/O boundaries) plus genuine
     I/O-layer exceptions are caught; internal bugs (shape ValueErrors,
-    KeyErrors, ...) traceback so they stay diagnosable (ADVICE r4)."""
+    KeyErrors, ...) traceback so they stay diagnosable."""
     import gzip
     import struct
     import zipfile
@@ -107,9 +107,11 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _main(argv: list[str] | None = None) -> int:
+    from .utils.compile_cache import enable_compile_cache
     from .utils.native import tune_malloc
 
     tune_malloc()  # GiB-buffer page reuse (see utils.native.tune_malloc)
+    enable_compile_cache()
     args = _parser("malva-tpu").parse_args(argv)
     cfg = _config(args)
     timer = PhaseTimer()

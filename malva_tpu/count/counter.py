@@ -316,7 +316,8 @@ def count_reads_kmers(
     counts = np.minimum(acc_cnts[keep], cs).astype(np.uint32)
     print(
         f"[malva-tpu/count] {total_windows} k-mer occurrences, "
-        f"{acc_cnts.shape[0]} distinct, {keys.shape[0]} past ci={ci}",
+        f"{acc_cnts.shape[0]} distinct, {keys.shape[0]} past ci={ci}"
+        + (" (device sort-count)" if use_device else ""),
         file=log,
     )
     return (keys if return_packed else unpack_2bit(keys, ref_k)), counts

@@ -3,7 +3,7 @@
 Observable semantics match the reference BF (reference:
 bloom_filter.hpp:52-157): one XXH3_64bits hash of the canonical k-mer,
 index = hash % size; counters exist only for set bits, addressed by
-rank(index), stored mod 2^16.  The layout here is TPU-native: the bit
+rank(index), stored mod 2^16.  The layout here is device-friendly: the bit
 array is uint32 words, rank is a per-word exclusive popcount cumsum
 (rebuilt at switch_mode/load, like upstream rebuilds rank_support_v), and
 counters accumulate in uint32 (mod 2^16 applied at read — equivalent to

@@ -1,9 +1,9 @@
 """Device exact-map layout: two-choice bucketized cuckoo hash table.
 
-TPU gathers cost the same per row whether the row is 4 or 48 bytes
-(measured on v5e), so the exact reference-allele map is laid out as
-buckets of 4 candidate keys; a query gathers its (at most two) candidate
-bucket rows and compares all slots on the VPU.  Both bucket indices are
+A random gather into a large table costs about one memory transaction
+whether the row is 4 or 48 bytes, so the exact reference-allele map is
+laid out as buckets of 4 candidate keys; a query gathers its (at most
+two) candidate bucket rows and compares all slots elementwise.  Both bucket indices are
 derived from the XXH3 hash of the canonical k-mer that the call step
 already computes for the Bloom probe (b1 = lo ^ hi, b2 = lo*C1 ^ hi*C2,
 masked), so no extra hashing happens on device.

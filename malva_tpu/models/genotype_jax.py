@@ -1,6 +1,6 @@
 """Vmapped device genotype-likelihood model.
 
-Bulk GT/GQ computation for padded variant batches on TPU (float32).  The
+Bulk GT/GQ computation for padded variant batches on device (float32).  The
 math mirrors models.genotype (reference: var_block.hpp:224-330) — binomial
 likelihood via Stirling log-binomial with allele-frequency priors — but in
 f32 without the host path's exact float-promotion quirks; the scalar host

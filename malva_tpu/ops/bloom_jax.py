@@ -59,7 +59,7 @@ def scatter_add_u32(counts, cnt_idx, vals, mask):
 def bloom_set(words, word_idx, bit, mask=None):
     """Set bits (build path) via scatter-add, correct under duplicates.
 
-    There is no scatter-OR on TPU, so: lexicographically sort the
+    XLA has no scatter-OR, so: lexicographically sort the
     (word, bit) pairs (stable two-key lax.sort — no 37-bit packed key
     needed for large filters), drop exact duplicates, gather the current
     word and add only bits not already set.  Lanes where ``mask`` is
@@ -91,7 +91,7 @@ def pack2bit_jax(kmers, k: int):
     jnp = _jnp()
     # Arithmetic ACGT->0..3 (alphabetical order): c2 = (c>>1)&3 gives
     # A->0 C->1 G->3 T->2; XOR with its own bit1 swaps 2<->3.  No table
-    # gather (slow on TPU).  Non-ACGT bytes produce arbitrary codes —
+    # gather.  Non-ACGT bytes produce arbitrary codes —
     # callers only pack pure-ACGT canonical k-mers.
     c2 = ((kmers.astype(jnp.uint32)) >> 1) & jnp.uint32(3)
     codes = c2 ^ (c2 >> 1)

@@ -169,9 +169,9 @@ def is_acgt(kmers: np.ndarray) -> np.ndarray:
 def complement_jax(kmers):
     """RCN complement as an arithmetic select chain.
 
-    Table gathers (jnp.take) are pathologically slow on TPU for byte
-    lookups; a chain of vectorized compares/selects runs on the VPU at
-    full rate.  Matches RCN_TABLE exactly (incl. lowercase quirks and
+    A chain of elementwise compares/selects instead of a byte-table
+    gather, so it fuses with the surrounding arithmetic.  Matches
+    RCN_TABLE exactly (incl. lowercase quirks and
     0 for everything else).
     """
     import jax.numpy as jnp

@@ -13,8 +13,8 @@ Two implementations are provided:
   strings shaped ``(N, L) uint8``.  This is the host-side exact path used
   for index construction and for oracle tests.
 * :func:`xxh3_64_u32` — pure ``uint32``-pair arithmetic (no 64-bit ops),
-  written against ``jax.numpy`` so it jit-compiles for TPU, where native
-  64-bit multiplies are unavailable/slow.  Parity-tested against
+  written against ``jax.numpy`` so it jit-compiles without JAX's 64-bit
+  mode.  Parity-tested against
   :func:`xxh3_64`.
 
 All code paths (0, 1-3, 4-8, 9-16, 17-128, 129-240, >240 bytes) are

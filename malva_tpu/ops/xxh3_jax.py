@@ -1,8 +1,8 @@
 """XXH3_64bits on device (jax.numpy), as uint32-pair arithmetic.
 
-TPU has no fast native 64-bit integer multiply, so every uint64 value is
+JAX runs with 64-bit types disabled by default, so every uint64 value is
 carried as a (hi, lo) pair of uint32 arrays and the 64x64->128 multiplies
-of XXH3 are built from 16-bit limb products on the VPU.  Bit-exact parity
+of XXH3 are built from 16-bit limb products.  Bit-exact parity
 with the NumPy host implementation (malva_tpu.ops.xxh3) — and therefore
 with the upstream C library — is enforced by tests across all supported
 lengths (0..240 bytes; the pipeline uses k=35 and ref_k=43).
@@ -294,8 +294,9 @@ def xxh3_64_jax(a):
 def xxh3_64_cols(cols):
     """XXH3_64bits over byte COLUMNS: cols[j] is the j-th byte of every
     lane (any common shape, uint8/uint32).  Returns (hi, lo) arrays of the
-    lanes' shape.  This is the form Pallas kernels use — windows of a
-    sequence are column slices, no (N, L) matrix is materialized."""
+    lanes' shape.  Columns keep the hash elementwise per lane, so XLA can
+    fuse it with whatever produced the columns and no (N, L) matrix need
+    be materialized."""
     jnp = _jnp()
     length = len(cols)
     cache = {}

@@ -22,8 +22,8 @@ north_star):
 Exercised for real with ``process_count > 1``: tests/test_distributed.py
 spawns local CPU processes with a 127.0.0.1 coordinator (Gloo
 collectives) and requires the multi-process VCF byte-identical to the
-single-process output.  The same entry points drive real multi-host TPU
-pods (coordinator + process ids from the scheduler).
+single-process output.  The same entry points drive real multi-host
+clusters (coordinator + process ids from the scheduler).
 """
 
 from __future__ import annotations
@@ -121,12 +121,11 @@ class _Collectives:
             return None
         import jax
         from jax.experimental import multihost_utils
-        from jax.experimental.shard_map import shard_map
         from jax.sharding import PartitionSpec as P
 
         shape = send.shape
         if shape not in self._a2a:
-            self._a2a[shape] = jax.jit(shard_map(
+            self._a2a[shape] = jax.jit(jax.shard_map(
                 lambda x: jax.lax.all_to_all(
                     x, "p", split_axis=0, concat_axis=0, tiled=True
                 ),
@@ -152,12 +151,11 @@ class _Collectives:
             return None
         import jax
         from jax.experimental import multihost_utils
-        from jax.experimental.shard_map import shard_map
         from jax.sharding import PartitionSpec as P
 
         n = plane.shape[0]
         if n not in self._psum:
-            self._psum[n] = jax.jit(shard_map(
+            self._psum[n] = jax.jit(jax.shard_map(
                 lambda x: jax.lax.psum(x, "p"),
                 mesh=mesh, in_specs=P("p"), out_specs=P(None),
             ))

@@ -1,6 +1,6 @@
 """Hash-range-sharded device index + multi-chip call-phase step.
 
-The TPU-native answer to "the index does not fit one chip's HBM"
+The answer to "the index does not fit one card's memory"
 (SURVEY.md §2: sharded k-mer index; BASELINE.json north_star): the Bloom
 bit/counter arrays and the exact map are split into contiguous hash
 ranges, one range per device along mesh axis ``shard``.  Read-derived

@@ -8,6 +8,7 @@ npz of the Bloom/map arrays (rank rebuilt on load, like upstream).
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from dataclasses import dataclass
@@ -37,25 +38,25 @@ class Index:
 
 
 # Work-size floors for auto device routing: below these, host numpy beats
-# the device path's fixed costs (index upload to HBM, jit compiles, padded
-# batches) by a wide margin.  Tunable for co-located TPU hosts where the
-# upload is PCIe-fast.
+# the device path's fixed costs (index upload to device memory, jit
+# compiles, padded batches).  The values are inherited and not yet
+# measured on the H100.
 DEVICE_MIN_REF_POSITIONS = int(os.environ.get("MALVA_DEVICE_MIN_REF", 1 << 25))
 DEVICE_MIN_KMERS = int(os.environ.get("MALVA_DEVICE_MIN_KMERS", 1 << 22))
 DEVICE_MIN_READ_BYTES = int(os.environ.get("MALVA_DEVICE_MIN_READ_BYTES", 1 << 26))
 
 
 def _resolve_backend(cfg: Config, work: int | None = None, floor: int = 0) -> str:
-    """host or device.  auto -> device when a non-CPU jax backend (TPU)
-    is present, the Bloom size fits the device modulo contract, and the
-    work size clears the floor (device fixed costs need amortizing)."""
+    """host or device.  auto -> device when JAX's platform is not cpu,
+    the Bloom size fits the device modulo contract, and the work size
+    clears the floor (device fixed costs need amortizing).  A JAX that
+    fails to initialise raises: a broken accelerator is an error, not a
+    reason to run on the host."""
     if cfg.backend == "host":
         return "host"
-    if cfg.backend == "device":
-        return "device"
-    if work is not None and work < floor:
-        return "host"
-    try:
+    if cfg.backend != "device":
+        if work is not None and work < floor:
+            return "host"
         import jax
 
         if jax.default_backend() == "cpu":
@@ -64,19 +65,22 @@ def _resolve_backend(cfg: Config, work: int | None = None, floor: int = 0) -> st
                    and (cfg.bf_size >> 33) <= 8) or (
             cfg.bf_size & (cfg.bf_size - 1) == 0 and 32 <= cfg.bf_size <= (1 << 32)
         )
-        return "device" if ok_size else "host"
-    except Exception as e:
-        global _warned_backend_fallback
-        if not _warned_backend_fallback:
-            _warned_backend_fallback = True
-            print(
-                f"[malva-tpu] backend auto: accelerator unavailable "
-                f"({type(e).__name__}); using host", file=sys.stderr,
-            )
-        return "host"
+        if not ok_size:
+            return "host"
+    _announce_devices()
+    return "device"
 
 
-_warned_backend_fallback = False
+@functools.cache
+def _announce_devices() -> None:
+    """One stderr line naming the devices the first device route runs on."""
+    import jax
+
+    devs = jax.devices()
+    print(
+        f"[malva-tpu] device route: platform={devs[0].platform} "
+        f"kind={devs[0].device_kind} count={len(devs)}", file=sys.stderr,
+    )
 
 
 # Extraction batch size (variants per native extract_group call): blocks
@@ -449,7 +453,7 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None) -> Index:
         else:
             from .index.device import build_context_device
 
-            build_context_device(tmp, refs_used, cfg, use_pallas=True)
+            build_context_device(tmp, refs_used, cfg)
         timer.pelapsed("Reference BF creation complete (device)")
         context_bf.switch_mode()
         print(
@@ -879,7 +883,8 @@ def call(cfg: Config, index: Index, out=sys.stdout, timer: PhaseTimer | None = N
         else:
             for keys, cnts in _prefetch(batches):
                 apply_sample_counts(index, keys, cnts, cfg)
-        timer.pelapsed("Sample k-mer counting + BF weights (spill)")
+        timer.pelapsed("Sample k-mer counting + BF weights (spill"
+                       + (", device)" if on_device else ")"))
     elif cfg.from_kmc_dump or cfg.from_kmc_db:
         _apply_kmc_stream(cfg, index, cfg.sample_path)
         timer.pelapsed("Sample k-mer stream + BF weights")
@@ -887,19 +892,22 @@ def call(cfg: Config, index: Index, out=sys.stdout, timer: PhaseTimer | None = N
         contexts, counts = _sample_kmers(cfg, cfg.sample_path)
         timer.pelapsed("Sample k-mer counting")
         mesh = _call_mesh(cfg, contexts.shape[0], DEVICE_MIN_KMERS)
+        route = ""
         if mesh is not None:
             from .parallel.sharded_index import apply_sample_counts_sharded_stream
 
             apply_sample_counts_sharded_stream(
                 index, [(contexts, counts)], cfg, mesh
             )
+            route = f" (device, {mesh.size}-device mesh)"
         elif _resolve_backend(cfg, contexts.shape[0], DEVICE_MIN_KMERS) == "device":
             from .index.device import apply_sample_counts_device
 
             apply_sample_counts_device(index, contexts, counts, cfg)
+            route = " (device)"
         else:
             apply_sample_counts(index, contexts, counts, cfg)
-        timer.pelapsed("BF weights created")
+        timer.pelapsed("BF weights created" + route)
 
     _genotype_and_emit(cfg, index, refs, out, timer, batches=pass2)
 

@@ -36,9 +36,17 @@ def load() -> "ctypes.CDLL | None":
         if not os.path.exists(src):
             return None
         if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            subprocess.run(
-                ["make", "-C", nd], check=True, capture_output=True, timeout=120
-            )
+            try:
+                subprocess.run(
+                    ["make", "-C", nd], check=True, capture_output=True, timeout=120
+                )
+            except subprocess.CalledProcessError:
+                # a compiler without an OpenMP runtime (no libgomp): the
+                # kernels guard every OpenMP call, so build them serial
+                subprocess.run(
+                    ["make", "-C", nd, "OMPFLAGS=-Wno-unknown-pragmas"],
+                    check=True, capture_output=True, timeout=120,
+                )
         lib = ctypes.CDLL(so)
         lib.malva_combs.restype = ctypes.c_int64
         lib.malva_combs.argtypes = [

@@ -8,7 +8,7 @@
 // Usage: ref_hotloop <log2_bits> <n_kmers> <iters> [n_and] [kmap_keys]
 //   n_and = 0: legacy sparse fill (~3e-6 bit density)
 //   n_and = k: every word = AND of k random words (density 2^-k; 6 -> the
-//              WGS-like 1.6e-2 the TPU bench uses)
+//              WGS-like 1.6e-2 of bench.py's wgs mode)
 //   kmap_keys: exact-map size (default 1e6)
 // Prints: kmers_per_sec=<float>
 

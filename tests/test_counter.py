@@ -163,7 +163,7 @@ def test_device_seq_counter_hard_cases(tmp_path):
 @pytest.mark.parametrize("ref_k", [32, 16, 43])
 def test_device_count_ref_k_multiple_of_16(tmp_path, ref_k):
     """Device counting parity when every packed-row pattern is reachable
-    (ref_k % 16 == 0 used to be rejected — VERDICT r1 weak #5)."""
+    (ref_k % 16 == 0 used to be rejected)."""
     rng = np.random.default_rng(ref_k)
     alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
     fq = tmp_path / "reads.fa"
@@ -185,7 +185,7 @@ def test_device_count_ref_k_multiple_of_16(tmp_path, ref_k):
 def test_wrapped_fastq_mid_file_falls_back(tmp_path):
     """A valid multi-line (wrapped) FASTQ whose first wrapped record sits
     past several fast-path yields must parse like the kseq-style parser,
-    not raise (ADVICE r4): the fast path restarts the slow parser and
+    not raise: the fast path restarts the slow parser and
     skips the already-yielded (validated) reads."""
     from malva_tpu.io.fasta import iter_read_batches, iter_sequences
 

@@ -200,51 +200,96 @@ def test_device_ref_scan_parity():
     np.testing.assert_array_equal(host_idx.context_bf.words, dev_idx.context_bf.words)
 
 
-def test_pallas_window_hash_parity():
-    """Pallas fused window-hash kernel == host canonical+XXH3 (interpret
-    mode on CPU; the same kernel is compiled by Mosaic on TPU)."""
+@pytest.mark.parametrize("k,ref_k", [(35, 43), (15, 23), (31, 50)])
+def test_packed_front_end_matches_host(k, ref_k):
+    """XLA front end of the packed call step (ops.packed) == host
+    seq.canonical + xxh3_64, for the center and the whole context."""
     import jax.numpy as jnp
 
-    from malva_tpu.ops.pallas_kernels import HALO, make_window_hash_fn
+    from malva_tpu.ops.packed import center_hash, context_hash
     from malva_tpu.ops.seq import canonical
 
-    k, ref_k, tile = 35, 43, 128
-    rng = np.random.default_rng(3)
-    alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
-    n_pos = 256
-    ref = alpha[rng.integers(0, 5, size=n_pos + HALO)]
-    fn = make_window_hash_fn(k, ref_k, tile, interpret=True)
-    c_hi, c_lo, x_hi, x_lo = (np.asarray(x)[0] for x in fn(jnp.asarray(ref.astype(np.uint32))[None, :]))
+    rng = np.random.default_rng(k * 100 + ref_k)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    contexts = canonical(alpha[rng.integers(0, 4, size=(300, ref_k))])
+    off = (ref_k - k) // 2
+    rows = jnp.asarray(pack2bit_u32_np(contexts, ref_k))
 
-    wins = np.lib.stride_tricks.sliding_window_view(ref, ref_k)[:n_pos]
-    want_ctx = xxh3_64(canonical(np.ascontiguousarray(wins)))
-    want_cen = xxh3_64(canonical(np.ascontiguousarray(wins[:, 4:39])))
-    got_ctx = (x_hi.astype(np.uint64) << np.uint64(32)) | x_lo
-    got_cen = (c_hi.astype(np.uint64) << np.uint64(32)) | c_lo
-    np.testing.assert_array_equal(got_ctx, want_ctx)
-    np.testing.assert_array_equal(got_cen, want_cen)
+    ch, cl, cen = center_hash(rows, k, ref_k)
+    want_cen = canonical(np.ascontiguousarray(contexts[:, off : off + k]))
+    got = (np.asarray(ch).astype(np.uint64) << np.uint64(32)) | np.asarray(cl)
+    np.testing.assert_array_equal(got, xxh3_64(want_cen))
+    np.testing.assert_array_equal(np.asarray(cen), pack2bit_u32_np(want_cen, k))
+
+    xh, xl = context_hash(rows, ref_k)
+    got = (np.asarray(xh).astype(np.uint64) << np.uint64(32)) | np.asarray(xl)
+    np.testing.assert_array_equal(got, xxh3_64(contexts))
 
 
-def test_pallas_ref_scan_parity():
-    """Full ref-scan via the Pallas kernel == host context scan."""
-    from malva_tpu.index.device import build_context_device
+@pytest.mark.parametrize("cap,minifilter", [(None, True), (8, True), (None, False), (8, False)])
+def test_packed_call_step_matches_full(cap, minifilter):
+    """Packed step == full-batch step on the tiny index, across the
+    compact tail and the fallback tier (cap=8 overflows every tier) and
+    minifilter on/off."""
+    import jax.numpy as jnp
+
+    from malva_tpu.index.device import make_call_step, make_call_step_packed
+    from malva_tpu.ops.seq import canonical
 
     cfg = Config(k=35, ref_k=43, bf_size=1 << 20)
-    rng = np.random.default_rng(13)
-    alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
-    ref = alpha[rng.integers(0, 5, size=3000)]
+    rng = np.random.default_rng(6)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    index, (alt_keys, ref_keys, ctx_keys) = _tiny_index(cfg)
+    dev = DeviceIndex.from_host(index, cfg)
+    packed = np.asarray(dev.bf_packed)
+    if not minifilter:
+        packed = packed.copy()
+        packed[:, 1] &= (1 << 28) - 1
+    bf_packed = jnp.asarray(packed)
 
-    host_idx, _ = _tiny_index(cfg, seed=9)
-    dev_idx, _ = _tiny_index(cfg, seed=9)
-    for start in (150, 700, 1500):
-        host_idx.bf.add_keys(ref[start + 4 : start + 39][None, :])
-        dev_idx.bf.add_keys(ref[start + 4 : start + 39][None, :])
+    B = 512
+    contexts = alpha[rng.integers(0, 4, size=(B, cfg.ref_k))]
+    contexts[:64, 4:39] = alt_keys[:64]
+    contexts[64:128, 4:39] = ref_keys[:64]
+    contexts[128:192] = ctx_keys[:64]
+    contexts = canonical(contexts)
+    counters = rng.integers(1, 255, size=B).astype(np.uint32)
 
-    off = cfg.center_off
-    n_pos = len(ref) - cfg.ref_k + 1
-    windows = np.lib.stride_tricks.sliding_window_view(ref, cfg.ref_k)[:n_pos]
-    hits = host_idx.bf.test_keys(np.ascontiguousarray(windows[:, off : off + cfg.k]))
-    host_idx.context_bf.add_keys(np.ascontiguousarray(windows[hits]))
+    full = make_call_step(cfg.k, cfg.ref_k, cfg.bf_size, dev.n_buckets, minifilter)
+    c_full, v_full = full(
+        bf_packed, dev.bf_counts, dev.ctx_words, dev.kmap_keys, dev.kmap_vals,
+        contexts, counters,
+    )
+    step = make_call_step_packed(
+        cfg.k, cfg.ref_k, cfg.bf_size, dev.n_buckets, B, cap=cap,
+        minifilter=minifilter,
+    )
+    state = jnp.concatenate([dev.bf_counts, dev.kmap_vals])
+    state = step(bf_packed, state, dev.ctx_words, dev.kmap_keys,
+                 jnp.asarray(pack2bit_u32_np(contexts, cfg.ref_k)), counters)
+    n_counts = dev.bf_counts.shape[0]
+    assert np.asarray(c_full).any() and np.asarray(v_full).any()
+    np.testing.assert_array_equal(np.asarray(c_full), np.asarray(state[:n_counts]))
+    np.testing.assert_array_equal(np.asarray(v_full), np.asarray(state[n_counts:]))
 
-    build_context_device(dev_idx, [ref], cfg, chunk=512, use_pallas=True)
-    np.testing.assert_array_equal(host_idx.context_bf.words, dev_idx.context_bf.words)
+
+def test_stream_batch_needs_no_lane_rounding():
+    """A stream whose distinct set is not a multiple of 128 lanes runs at
+    its own lane count and matches the host path."""
+    from malva_tpu.ops.seq import canonical
+
+    cfg = Config(k=35, ref_k=43, bf_size=1 << 20)
+    rng = np.random.default_rng(8)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    index_h, (alt_keys, ref_keys, _) = _tiny_index(cfg)
+    index_d, _ = _tiny_index(cfg)
+    contexts = alpha[rng.integers(0, 4, size=(301, cfg.ref_k))]
+    contexts[:100, 4:39] = alt_keys[:100]
+    contexts[100:200, 4:39] = ref_keys[:100]
+    contexts = canonical(contexts)
+    counters = rng.integers(1, 255, size=301).astype(np.uint32)
+
+    apply_sample_counts(index_h, contexts, counters, cfg)
+    apply_sample_counts_device(index_d, contexts, counters, cfg, batch=100)
+    np.testing.assert_array_equal(index_h.bf.counts, index_d.bf.counts)
+    assert index_h.ref_bf.kmers == index_d.ref_bf.kmers

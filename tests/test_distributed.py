@@ -1,4 +1,4 @@
-"""Real multi-process jax.distributed runs (VERDICT r3 missing #3).
+"""Real multi-process jax.distributed runs.
 
 Spawns local CPU processes with a 127.0.0.1 coordinator — genuinely
 exercising jax.distributed.initialize, host_shard, the one-round
@@ -92,8 +92,7 @@ def _env():
 @pytest.mark.slow
 def test_peer_death_aborts_with_one_line_error(split_inputs, tmp_path):
     """Gloo collectives hang forever when a peer dies mid-run; the
-    --timeout watchdog converts that into a one-line ERROR exit
-    (VERDICT r4 ask #8)."""
+    --timeout watchdog converts that into a one-line ERROR exit."""
     import signal
     import time
 

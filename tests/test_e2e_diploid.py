@@ -74,11 +74,10 @@ def test_batch_device_backend_reuses_index(tmp_path):
     assert o2.getvalue() == golden
 
 
-@pytest.mark.slow
 def test_device_backend_end_to_end():
-    """Full pipeline with backend='device' (device ref scan via Pallas
-    interpret + device call step) == golden, validating the integration
-    path the TPU actually runs."""
+    """Full pipeline with backend='device' (device ref scan + device
+    sort-count + packed call step, all plain XLA) == golden: the route
+    `run --backend device` takes on a GPU, here on JAX's CPU backend."""
     cfg = Config(
         fasta_path=os.path.join(D, "ref.fa"),
         vcf_path=os.path.join(D, "vars.vcf"),

@@ -1,4 +1,4 @@
-"""Full-pipeline multi-device E2E parity (VERDICT r3 missing #1/#2).
+"""Full-pipeline multi-device E2E parity.
 
 Runs the COMPLETE product pipeline (count -> index -> call) twice on the
 haploid example inputs: once with the host backend on one device, once

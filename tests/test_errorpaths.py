@@ -1,4 +1,4 @@
-"""Error-path hardening (VERDICT r3 ask #8): bad inputs fail with a
+"""Error-path hardening: bad inputs fail with a
 one-line `[malva-tpu] ERROR:` on stderr — the reference's explicit
 `ERROR:` exit contract (main.cpp:262-281) — never a traceback; plus the
 KMC round-trip fuzz over counter_size x lut_prefix_length."""
@@ -148,8 +148,8 @@ def test_kmc_pre_truncated(tmp_path, capsys):
 @pytest.mark.parametrize("lut_offset", [0, 4, 8])
 def test_kmc_roundtrip_counter_and_lut_sizes(tmp_path, counter_size,
                                              lut_offset):
-    """KMC DB round-trip fuzz over counter_size x lut_prefix_length
-    (VERDICT #8): write -> read must preserve the exact (k-mer, count)
+    """KMC DB round-trip fuzz over counter_size x lut_prefix_length:
+    write -> read must preserve the exact (k-mer, count)
     set for every supported layout.  KMC stores suffixes in 4-base bytes,
     so lut_prefix must satisfy k == lut_prefix (mod 4)."""
     rng = np.random.default_rng(100 * counter_size + lut_offset)

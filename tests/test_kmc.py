@@ -37,8 +37,7 @@ def test_kmc_roundtrip(tmp_path, k, counter_size):
 
 
 def test_kmc_db_equals_text_dump(tmp_path):
-    """Same (contexts, counts) through the binary DB and the text dump
-    (VERDICT round-1 done-criterion for the KMC reader)."""
+    """Same (contexts, counts) through the binary DB and the text dump."""
     from malva_tpu.count.counter import load_kmc_dump
 
     kmers, counts = _canon_kmers(2000, 43, seed=3)

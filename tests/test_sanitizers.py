@@ -1,5 +1,5 @@
 """Sanitizer-style harnesses (SURVEY.md §5: the reference is single-
-threaded and has none; the TPU build needs NaN and determinism gates).
+threaded and has none; the device build needs NaN and determinism gates).
 
 * debug_nans: the genotype model and the call step run clean under
   jax.debug_nans (no hidden NaN-producing intermediates).

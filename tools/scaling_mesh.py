@@ -4,7 +4,7 @@
 per-chip post-route work) vs all_gather (O(B) everywhere) at D=1/2/4/8,
 fixed GLOBAL batch.
 
-CPU-mesh wall-clock is NOT TPU wall-clock — the point is the CURVE:
+CPU-mesh wall-clock is NOT device wall-clock — the point is the CURVE:
 whether the routed step's per-chip work actually shrinks with D and what
 the collective overhead trend looks like, so the 16-chip design in
 BASELINE.md rests on a measured trend.
